@@ -3,12 +3,12 @@ wave-fenics user's planar3d run becomes here (docs/MIGRATING.md):
 
 1. write a demo XDMF mesh + facet meshtags (stand-in for your DOLFINx
    export; tag 1 = source plane, tag 2 = absorbing, forms.ufl:21-24)
-2. ``from_xdmf`` -> GeneralLinearWave (explicit dofmap; fused windowed
-   Pallas operators on TPU)
+2. ``from_xdmf`` -> GeneralLinearWave (explicit dofmap; indexed
+   gather/scatter operators)
 3. solve with probe recording (hydrophone time series)
 4. write the final field as a p-refined sub-hex XDMF for ParaView
 
-Run: python examples/imported_mesh_hifu.py [outdir]  (CPU or TPU)
+Run: python examples/imported_mesh_hifu.py [outdir]
 """
 
 import os
@@ -20,8 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -101,8 +100,7 @@ from wave_fenics_tpu.models.general_wave import (  # noqa: E402
     solve_recording,
 )
 
-dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
-model = from_xdmf(mesh_path, tags_path, p=4, dtype=dtype)
+model = from_xdmf(mesh_path, tags_path, p=4, dtype=jnp.float64)
 h = model.mesh.hmin()
 dt = 0.25 * h / (model.c0 * model.p**2)
 nsteps = 200

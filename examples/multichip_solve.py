@@ -19,12 +19,12 @@ import jax.numpy as jnp  # noqa: E402
 
 from wave_fenics_tpu.models.planar3d import planar3d_case  # noqa: E402
 from wave_fenics_tpu.parallel.partition import decompose3d  # noqa: E402
-from wave_fenics_tpu.parallel.sharded_padded import ShardedPaddedWave  # noqa: E402
+from wave_fenics_tpu.parallel.sharded_wave import ShardedLinearWave  # noqa: E402
 
 parts = decompose3d(n)
 case = planar3d_case(
     ncells=tuple(4 * m for m in parts), domain_length=0.01, dtype=jnp.float32
 )
-sw = ShardedPaddedWave(case.model, parts, tile_x=8)
+sw = ShardedLinearWave(case.model, parts)
 u, v, nsteps = sw.solve(case.t0, case.t0 + 10 * case.dt, case.dt)
 print(f"mesh={parts} steps={nsteps} |v|max={float(jnp.abs(v).max()):.3e}")

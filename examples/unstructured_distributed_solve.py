@@ -1,10 +1,10 @@
 """Distributed solve on an IMPORTED (unstructured) hex mesh.
 
 The complete reference workflow (demo/cpu_planar3d/main.cpp:39-45 +
-gpu_scatter_mpi's VectorUpdater), TPU-native: a perturbed hex mesh with
-tagged source/absorbing facets, RCB-partitioned over N devices, solved
-with the fused windowed operator per device and one all_gather assembly
-exchange per RK stage. Compares against the single-device solve.
+gpu_scatter_mpi's VectorUpdater): a perturbed hex mesh with tagged
+source/absorbing facets, RCB-partitioned over N devices, solved with the
+indexed operator per device and one interface-assembly exchange per RK
+stage. Compares against the single-device solve.
 
 Run: python examples/unstructured_distributed_solve.py [ndev]
 """
@@ -62,8 +62,7 @@ u, v, nsteps = sw.solve_n(0.0, dt, 10)
 u1, v1 = md.solve_n(0.0, dt, 10)
 err = np.abs(sw.to_global(v) - np.asarray(v1)).max() / np.abs(
     np.asarray(v1)).max()
-fused = sw._fused_setup is not None
-print(f"ndev={n} ndofs={md.ndofs} steps={nsteps} fused_kernel={fused} "
+print(f"ndev={n} ndofs={md.ndofs} steps={nsteps} "
       f"|v|max={float(np.abs(sw.to_global(v)).max()):.3e} "
       f"rel_err_vs_single={err:.2e}")
 assert err < 1e-12

@@ -2,7 +2,7 @@
 
 Launched by tests/test_multiprocess.py, one instance per process. Each
 process owns 2 virtual CPU devices; together they form the 4-device global
-mesh for a ShardedPaddedWave solve. This is the repo's analogue of the
+mesh for a ShardedLinearWave solve. This is the repo's analogue of the
 reference's real multi-node MPI runs (demo/gpu_cg/submit-multinode.sh,
 demo/gpu_scatter_mpi/main.cpp:105-160): it exercises cross-process
 sharding metadata, host->device transfer of blocked arrays, and Gloo
@@ -11,9 +11,9 @@ collectives across the process boundary.
 Usage: python _mp_worker.py PORT PROC_ID NUM_PROCS OUTDIR PARTS MODE
 
 PARTS: comma list like "4,1,1" (2-axis splits exercise corner/edge
-exchanges across the process boundary); MODE: "stage" (per-stage
-halo-add solve_n), "step" (value-halo fused-step solve_step_n across
-processes), or "general-{allgather,ppermute}" (the UNSTRUCTURED
+exchanges across the process boundary); MODE: "stage" (RK4, one
+halo-add per stage), "leapfrog" (one halo-add per step), or
+"general-{allgather,ppermute}" (the UNSTRUCTURED
 ShardedGeneralWave path — RCB cell partition + interface assembly
 collective — across the process boundary, the VectorUpdater analogue of
 demo/gpu_scatter_mpi/main.cpp:105-160).
@@ -75,7 +75,7 @@ def main():
 
     from wave_fenics_tpu.core.mesh import FacetTags, box_mesh
     from wave_fenics_tpu.models.linear_wave import LinearWave
-    from wave_fenics_tpu.parallel.sharded_padded import ShardedPaddedWave
+    from wave_fenics_tpu.parallel.sharded_wave import ShardedLinearWave
 
     tags = FacetTags({1: (0,), 2: (1,)})
     mesh = box_mesh((4, 4, 2), (1.0e-2, 1.0e-2, 0.5e-2), facet_tags=tags)
@@ -111,22 +111,17 @@ def main():
                   flush=True)
         print(f"proc {pid} done", flush=True)
         return
-    sw = ShardedPaddedWave(model, parts=parts)
-
-    if mode == "step":
-        assert sw._step_tables is not None, "step path must apply here"
-        u, v, _ = sw.solve_step_n(0.0, dt, nsteps)
-    else:
-        u, v, _ = sw.solve_n(0.0, dt, nsteps)
+    sw = ShardedLinearWave(model, parts=parts)
+    integrator = "leapfrog" if mode == "leapfrog" else "rk4"
+    u, v, _ = sw.solve_n(0.0, dt, nsteps, integrator=integrator)
 
     # gather the blocked global arrays to every process, reduce to the
     # plain dof grid, and let process 0 write it for the parent to check
     u_all = multihost_utils.process_allgather(u, tiled=True)
     v_all = multihost_utils.process_allgather(v, tiled=True)
     if pid == 0:
-        conv = sw.to_global_step if mode == "step" else sw.to_global
-        ug = conv(np.asarray(u_all))
-        vg = conv(np.asarray(v_all))
+        ug = sw.to_global(np.asarray(u_all))
+        vg = sw.to_global(np.asarray(v_all))
         np.save(os.path.join(outdir, "u.npy"), ug)
         np.save(os.path.join(outdir, "v.npy"), vg)
         print(json.dumps({"u_l2": float(np.linalg.norm(ug)),

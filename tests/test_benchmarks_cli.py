@@ -25,8 +25,8 @@ def test_tsmm_cli(capsys):
 
 
 @pytest.mark.parametrize(
-    "op", ["mass", "mass-fused", "spectral", "spectral-roundtrip",
-           "stiffness", "stiffness-padded"]
+    "op", ["mass", "spectral", "spectral-roundtrip", "stiffness",
+           "bp1-mass"]
 )
 def test_operators_cli(op, capsys):
     from wave_fenics_tpu.benchmarks import operators_bench
@@ -76,8 +76,8 @@ def test_scatter_cli(capsys):
 @pytest.mark.parametrize(
     "op,extra",
     [("stiffness-general", []), ("mass-general", []),
-     ("stiffness-general-xla", []), ("stiffness-gauss", []),
-     ("mass-general", ["--resident"])],
+     ("stiffness-general", ["--dtype", "f64"]), ("stiffness-gauss", []),
+     ("mass-general", ["--s", "5"])],
 )
 def test_general_operators_cli(op, extra, capsys):
     from wave_fenics_tpu.benchmarks import operators_bench
@@ -90,8 +90,7 @@ def test_general_operators_cli(op, extra, capsys):
     )
     assert r["gdofs_per_s"] > 0
     assert r["max_rel_err_vs_f64_oracle"] < 1e-4
-    if "--resident" in extra:
-        assert r.get("variant") == "resident"
+    assert r["device_kind"] and r["device_count"] >= 1
 
 
 def test_scatter_general_halo_cli(capsys):
@@ -123,5 +122,5 @@ def test_general_solve_cli(capsys):
         capsys,
     )
     assert r["gdof_steps_per_s"] > 0
-    assert r["fused_kernel"] in (True, False)
+    assert r["platform"] == "cpu"
     assert 0.0 < r["vmax"] < 1e15

@@ -2,9 +2,9 @@
 
 The reference resolves element->dof write races with atomicAdd, which makes
 GPU results run-to-run nondeterministic in general (SURVEY.md §5 "race
-detection"). The TPU design has no races by construction — overlap-add is
-pure dataflow and XLA scatters are sorted — so we can assert BITWISE
-reproducibility, which the reference cannot.
+detection"). The structured path has no races by construction — overlap-add
+is pure dataflow — and the general path's default ELL scatter is a gather,
+so we can assert BITWISE reproducibility, which the reference cannot.
 """
 
 import jax

@@ -181,8 +181,6 @@ def test_imported_mesh_analytic_plane_wave(tmp_path):
     hm = HexMesh(points=pts2, cells=hm0.cells)
 
     rel, m = _solve_plane_wave_xdmf(tmp_path, hm, L)
-    # the graded cells are affine -> the rank-1 geometry path must engage
-    assert m.ops._affine_small is not None
     assert rel < 1e-5, rel
 
 
@@ -197,7 +195,7 @@ def test_imported_trilinear_mesh_plane_wave_floor(tmp_path):
     space, steady in time — scattered-field structure, not instability).
     This is scheme-intrinsic, not a bug: geometry factors validated to
     2e-10 against finite differences, and the affine-cell test above
-    passes at 1.9e-6. Documented in docs/BENCH_NOTES.md round 4."""
+    passes at 1.9e-6. Documented in docs/DESIGN.md."""
     pytest.importorskip("h5py")
     from wave_fenics_tpu.core.mesh import HexMesh
 
@@ -215,7 +213,6 @@ def test_imported_trilinear_mesh_plane_wave_floor(tmp_path):
     hm = HexMesh(points=pts, cells=hm0.cells)
 
     rel, m = _solve_plane_wave_xdmf(tmp_path, hm, L)
-    assert m.ops._affine_small is None  # genuinely non-affine cells
     assert rel < 1e-3, rel  # measured 2.6e-4 (quadrature-crime floor)
 
 
@@ -251,7 +248,7 @@ def test_consistent_quadrature_mode(tmp_path):
     condition (||d2x/dxi2||/h ~ const instead of -> 0), so the spatial
     error of ANY consistent scheme stalls — a property of the mesh
     family, shared with the reference. Refutation details:
-    docs/BENCH_NOTES.md round 5."""
+    docs/DESIGN.md."""
     pytest.importorskip("h5py")
     from wave_fenics_tpu.core.mesh import HexMesh
 
@@ -290,7 +287,7 @@ def test_consistent_quadrature_mode(tmp_path):
         quadrature="gauss",
     )
     # the documented shared floor (if a future change drops this below
-    # 5e-5, the round-5 refutation in BENCH_NOTES needs revisiting)
+    # 5e-5, the refutation recorded in docs/DESIGN.md needs revisiting)
     assert 5e-5 < rel_b < 1e-3, rel_b  # measured 2.20e-4
 
 

@@ -58,83 +58,3 @@ def test_geometry_singular_raises():
     _, dphi = geometry.trilinear_tabulate(pts3)
     with pytest.raises(ValueError):
         native.geometry_factors(m.cell_coords(), dphi, w3)
-
-
-@pytest.mark.parametrize("p,cells", [(2, (5, 4, 3)), (4, (4, 3, 3)),
-                                     (5, (3, 2, 2))])
-def test_native_chain_assignment_exact(p, cells):
-    """The C++ chain assignment must produce VALID tables (gather and
-    scatter reproduce the dofmap movement exactly) and cover the same
-    cells as the Python builder. Table bits may differ (the native
-    sequential first-fit is a refinement); validity is the contract."""
-    import os
-
-    from wave_fenics_tpu.core.dofmap import build_dofmap
-    from wave_fenics_tpu.ops.general_tables import (
-        build_batch_tables, reference_gather, reference_scatter,
-    )
-
-    if not native.available():
-        pytest.skip("native library unavailable")
-    hm = box_mesh(cells, (1.0, 1.0, 1.0)).to_hex_mesh()
-    dm = build_dofmap(hm, p)
-    nd = (p + 1) ** 3
-    os.environ["WAVE_FENICS_TABLE_CACHE"] = "off"
-    try:
-        tb_n = build_batch_tables(dm.dofmap, dm.ndofs, use_native=True)
-        tb_p = build_batch_tables(dm.dofmap, dm.ndofs, use_native=False)
-    finally:
-        del os.environ["WAVE_FENICS_TABLE_CACHE"]
-    assert len(tb_n.spill_cells) == len(tb_p.spill_cells) == 0
-    assert tb_n.nbatch == tb_p.nbatch
-    # native chains never exceed the Python builder's (refinement)
-    assert tb_n.kg <= tb_p.kg and tb_n.ks <= tb_p.ks
-    rng = np.random.default_rng(3)
-    x = rng.standard_normal(dm.ndofs)
-    xe = reference_gather(tb_n, x)
-    ye = np.zeros((tb_n.nbatch, tb_n.H, 128))
-    y_ref = np.zeros(dm.ndofs)
-    for i in range(tb_n.nbatch):
-        for b, cell in enumerate(tb_n.batch_cells[i]):
-            if cell < 0:
-                continue
-            r_, lo_ = tb_n.slot_coords(b)
-            np.testing.assert_array_equal(xe[i, r_, lo_],
-                                          x[dm.dofmap[cell]])
-            v = rng.standard_normal(nd)
-            ye[i, r_, lo_] = v
-            np.add.at(y_ref, dm.dofmap[cell], v)
-    y = reference_scatter(tb_n, ye, dm.ndofs)
-    np.testing.assert_allclose(y, y_ref, atol=1e-12)
-
-
-@pytest.mark.parametrize("p,cells", [(2, (6, 5, 4)), (4, (4, 3, 3))])
-def test_native_scatter_merge_exact(p, cells):
-    """Native scatter-merge encoding must reassociate the exact same
-    additions as the plain chain scatter (fixed deterministic order)."""
-    import os
-
-    from wave_fenics_tpu.core.dofmap import build_dofmap
-    from wave_fenics_tpu.ops.general_tables import (
-        build_batch_tables, build_scatter_merge,
-        reference_merge_scatter, reference_scatter,
-    )
-
-    if not native.available():
-        pytest.skip("native library unavailable")
-    hm = box_mesh(cells, (1.0, 1.0, 1.0)).to_hex_mesh()
-    dm = build_dofmap(hm, p)
-    os.environ["WAVE_FENICS_TABLE_CACHE"] = "off"
-    try:
-        tb = build_batch_tables(dm.dofmap, dm.ndofs)
-        mg = build_scatter_merge(tb, use_native=True)
-    finally:
-        del os.environ["WAVE_FENICS_TABLE_CACHE"]
-    assert mg is not None and mg.ks < tb.ks
-    rng = np.random.default_rng(2)
-    ye = rng.standard_normal((tb.nbatch, tb.H, 128))
-    # lane 127 is REAL data under full-lane packing; rows >= R are zero
-    ye[:, tb.R:, :] = 0.0
-    y_m = reference_merge_scatter(tb, mg, ye, dm.ndofs)
-    y_p = reference_scatter(tb, ye, dm.ndofs)
-    np.testing.assert_allclose(y_m, y_p, atol=1e-12)

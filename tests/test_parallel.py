@@ -143,207 +143,24 @@ def test_halo_sync_restores_invariant():
     np.testing.assert_allclose(np.asarray(out), blocked, atol=1e-12)
 
 
-@pytest.mark.parametrize("parts", [(2, 2, 2), (4, 1, 2)])
-def test_sharded_step_kernel_matches_single_device(parts):
-    """Distributed value-halo fused-step path (one kernel + one 3p-deep
-    value exchange per step, no per-stage halo-adds) == the single-device
-    per-stage padded solver, at machine precision."""
-    from wave_fenics_tpu.models.linear_wave_padded import PaddedLinearWave
-    from wave_fenics_tpu.parallel.sharded_padded import ShardedPaddedWave
+@pytest.mark.parametrize("parts", [(2, 1, 1), (2, 2, 1), (2, 2, 2),
+                                   (8, 1, 1)])
+def test_sharded_leapfrog_matches_single(parts):
+    """ShardedLinearWave leapfrog (one stiffness apply + halo-add per
+    step) == the single-device leapfrog solve, per partition shape."""
+    from wave_fenics_tpu.solvers.leapfrog import leapfrog_solve_n
 
-    tags = FacetTags({1: (0,), 2: (1,)})
-    mesh = box_mesh((8, 4, 4), (0.02, 0.01, 0.01), facet_tags=tags)
-    base = LinearWave(mesh, p=4, dtype=jnp.float64)
-    dt = 1e-9
-    pm = PaddedLinearWave(base, tile_x=16)
-    u_ref, v_ref = pm.solve_n(0.0, dt, 12)
-    gu = np.asarray(pm.to_grid(u_ref))
-    gv = np.asarray(pm.to_grid(v_ref))
-
-    sw = ShardedPaddedWave(base, parts, tile_x=16)
-    assert sw._step_tables is not None
-    u, v, _ = sw.solve_step_n(0.0, dt, 12)
-    np.testing.assert_allclose(sw.to_global_step(u), gu, rtol=1e-13,
-                               atol=1e-15 * max(np.abs(gu).max(), 1e-300))
-    np.testing.assert_allclose(sw.to_global_step(v), gv, rtol=1e-13,
-                               atol=1e-13 * np.abs(gv).max())
-
-
-@pytest.mark.parametrize("parts", [(2, 2, 2), (4, 1, 2)])
-def test_sharded_lf_kernel_matches_single_device(parts):
-    """Distributed value-halo fused LEAPFROG path (one kernel + one
-    2p-deep value exchange per step) == the single-device fused leapfrog
-    step kernel, at machine precision."""
-    from wave_fenics_tpu.models.linear_wave_padded import PaddedLinearWave
-    from wave_fenics_tpu.parallel.sharded_padded import ShardedPaddedWave
-
-    tags = FacetTags({1: (0,), 2: (1,)})
-    mesh = box_mesh((8, 4, 4), (0.02, 0.01, 0.01), facet_tags=tags)
-    base = LinearWave(mesh, p=4, dtype=jnp.float64)
-    dt = 1e-9
-    pm = PaddedLinearWave(base, tile_x=16)
-    u_ref, v_ref, _ = pm.solve_lf_n(0.0, dt, 12)
-    gu = np.asarray(pm.to_grid(u_ref))
-    gv = np.asarray(pm.to_grid(v_ref))
-
-    sw = ShardedPaddedWave(base, parts, tile_x=16)
-    assert sw._lf_tables is not None
-    u, v, _ = sw.solve_lf_n(0.0, dt, 12)
-    np.testing.assert_allclose(sw.to_global_lf(u), gu, rtol=1e-13,
-                               atol=1e-15 * max(np.abs(gu).max(), 1e-300))
-    np.testing.assert_allclose(sw.to_global_lf(v), gv, rtol=1e-13,
-                               atol=1e-13 * np.abs(gv).max())
-
-
-@pytest.mark.parametrize("parts", [(2, 2, 2), (4, 1, 2)])
-def test_sharded_lf2_kernel_matches_single_device(parts):
-    """Distributed 2-step leapfrog (one kernel + one 3p-deep value
-    exchange per TWO steps) == the single-device single-step leapfrog
-    kernel, at machine precision."""
-    from wave_fenics_tpu.models.linear_wave_padded import PaddedLinearWave
-    from wave_fenics_tpu.parallel.sharded_padded import ShardedPaddedWave
-
-    tags = FacetTags({1: (0,), 2: (1,)})
-    mesh = box_mesh((8, 4, 4), (0.02, 0.01, 0.01), facet_tags=tags)
-    base = LinearWave(mesh, p=4, dtype=jnp.float64)
-    dt = 1e-9
-    pm = PaddedLinearWave(base, tile_x=16)
-    u_ref, v_ref, _ = pm.solve_lf_n(0.0, dt, 12)
-    gu = np.asarray(pm.to_grid(u_ref))
-    gv = np.asarray(pm.to_grid(v_ref))
-
-    sw = ShardedPaddedWave(base, parts, tile_x=16)
-    assert sw._lf2_tables is not None
-    with pytest.raises(ValueError, match="even"):
-        sw.solve_lf2_n(0.0, dt, 11)
-    u, v, _ = sw.solve_lf2_n(0.0, dt, 12)
-    np.testing.assert_allclose(sw.to_global_lf2(u), gu, rtol=1e-13,
-                               atol=1e-15 * max(np.abs(gu).max(), 1e-300))
-    np.testing.assert_allclose(sw.to_global_lf2(v), gv, rtol=1e-13,
-                               atol=1e-13 * np.abs(gv).max())
-
-
-@pytest.mark.parametrize("cells,parts", [((8, 4, 4), (2, 2, 2)),
-                                         ((15, 4, 4), (3, 1, 1))])
-def test_sharded_rk42_kernel_matches_single_device(cells, parts):
-    """Distributed 2-step RK4 (one kernel + one 6p-deep value exchange
-    per TWO steps) == the single-device single-step RK4 kernel, from a
-    RANDOM O(1) initial state (non-vacuous for deep-halo staleness —
-    zero-state face-source runs leave the deep-halo field exponentially
-    small; experiments/exp_halo_staleness_probe.py). The (3,1,1) case
-    sits exactly on the n>=5 one-hop supply guard boundary."""
-    from wave_fenics_tpu.models.linear_wave_padded import PaddedLinearWave
-    from wave_fenics_tpu.parallel.sharded_padded import ShardedPaddedWave
-
-    tags = FacetTags({1: (0,), 2: (1,)})
-    mesh = box_mesh(cells, (0.0025 * cells[0], 0.01, 0.01),
-                    facet_tags=tags)
-    base = LinearWave(mesh, p=4, dtype=jnp.float64)
-    dt = 1e-9
-    pm = PaddedLinearWave(base, tile_x=24)
-    rng = np.random.default_rng(3)
-    gshape = tuple(n * 4 + 1 for n in cells)
-    u0g = rng.standard_normal(gshape)
-    v0g = rng.standard_normal(gshape)
-    u_ref, v_ref, _ = pm.solve_step_n(
-        0.0, dt, 12, pm.from_grid(jnp.asarray(u0g)),
-        pm.from_grid(jnp.asarray(v0g)))
-    gu = np.asarray(pm.to_grid(u_ref))
-    gv = np.asarray(pm.to_grid(v_ref))
-
-    sw = ShardedPaddedWave(base, parts, tile_x=24)
-    assert sw._rk42_tables is not None
-    with pytest.raises(ValueError, match="even"):
-        sw.solve_step2_n(0.0, dt, 11)
-    lay = sw._rk42_layout
-    ub = sw.from_global(u0g, lay)
-    vb = sw.from_global(v0g, lay)
-    u, v, _ = sw.solve_step2_n(0.0, dt, 12, ub, vb)
-    np.testing.assert_allclose(sw.to_global_rk42(u), gu, rtol=1e-13,
-                               atol=1e-13 * np.abs(gu).max())
-    np.testing.assert_allclose(sw.to_global_rk42(v), gv, rtol=1e-13,
-                               atol=1e-13 * np.abs(gv).max())
-
-
-def test_sharded_rk42_unavailable_raises():
-    """< 5 cells/block on an axis split >= 3 ways cannot supply the 6p
-    one-hop value halo — solve_step2_n must raise (no silent fallback)."""
-    from wave_fenics_tpu.parallel.sharded_padded import ShardedPaddedWave
-
-    tags = FacetTags({1: (0,), 2: (1,)})
-    mesh = box_mesh((8, 4, 4), (0.02, 0.01, 0.01), facet_tags=tags)
-    base = LinearWave(mesh, p=4, dtype=jnp.float64)
-    sw = ShardedPaddedWave(base, (4, 1, 2), tile_x=24)
-    assert sw._rk42_tables is None
-    with pytest.raises(ValueError, match="2-step RK4"):
-        sw.solve_step2_n(0.0, 1e-9, 2)
-
-
-def test_sharded_lf_unavailable_raises():
-    """1 cell per block on an axis split >= 3 ways cannot supply the 2p
-    one-hop value halo either — solve_lf_n must raise (no silent
-    fallback with a 4x different cost profile)."""
-    from wave_fenics_tpu.parallel.sharded_padded import ShardedPaddedWave
-
-    tags = FacetTags({1: (0,), 2: (1,)})
-    mesh = box_mesh((4, 2, 2), (0.02, 0.01, 0.01), facet_tags=tags)
-    base = LinearWave(mesh, p=4, dtype=jnp.float64)
-    sw = ShardedPaddedWave(base, (4, 1, 1), tile_x=16)
-    assert sw._lf_layout is None
-    with pytest.raises(ValueError, match="leapfrog"):
-        sw.solve_lf_n(0.0, 1e-9, 2)
-
-
-def test_sharded_step_min_extent_guard_falls_back():
-    """1 cell per block on an axis split >= 3 ways cannot supply a valid
-    3p one-hop value halo (the sent slab would include the sender's own
-    halo rows, valid only to depth p) — the step path must refuse and
-    solve_step_n must fall back to the per-stage halo-add path, which
-    still matches the single-device solve."""
-    from wave_fenics_tpu.models.linear_wave_padded import PaddedLinearWave
-    from wave_fenics_tpu.parallel.sharded_padded import ShardedPaddedWave
-
-    tags = FacetTags({1: (0,), 2: (1,)})
-    mesh = box_mesh((4, 2, 2), (0.02, 0.01, 0.01), facet_tags=tags)
-    base = LinearWave(mesh, p=4, dtype=jnp.float64)
-    sw = ShardedPaddedWave(base, (4, 1, 1), tile_x=16)
-    assert sw._step_layout is None
-    assert sw._step_tables is None
-    dt = 1e-9
-    u, v, _ = sw.solve_step_n(0.0, dt, 6)  # falls back to solve_n
-    pm = PaddedLinearWave(base, tile_x=16)
-    u_ref, v_ref = pm.solve_n(0.0, dt, 6)
-    gv = np.asarray(pm.to_grid(v_ref))
-    np.testing.assert_allclose(sw.to_global(v), gv, rtol=1e-13,
-                               atol=1e-13 * np.abs(gv).max())
-
-
-def test_sharded_step_duplicated_plane_bitwise():
-    """After the value-halo refresh, duplicated x-interface planes are
-    canonicalized to the low-side owner: both copies bitwise equal."""
-    from wave_fenics_tpu.parallel.sharded_padded import ShardedPaddedWave
-
-    tags = FacetTags({1: (0,), 2: (1,)})
-    mesh = box_mesh((8, 4, 4), (0.02, 0.01, 0.01), facet_tags=tags)
-    base = LinearWave(mesh, p=4, dtype=jnp.float64)
-    sw = ShardedPaddedWave(base, (2, 2, 1), tile_x=16)
-    dt = 1e-9
-    u, v, _ = sw.solve_step_n(0.0, dt, 8)
-    # refresh once more so the duplicated planes are canonicalized state
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    spec = P("x", "y", "z", None, None, None)
-    refresh = shard_map(
-        lambda a: sw._refresh_value_halos(a.reshape(a.shape[3:])).reshape(
-            a.shape
-        ),
-        mesh=sw.mesh, in_specs=(spec,), out_specs=spec, check_vma=False,
-    )
-    v = refresh(v)
-    lay = sw._step_layout
-    vb = np.asarray(v)
-    inter = lay.interior
-    left = vb[0, 0, 0][inter][-1]
-    right = vb[1, 0, 0][inter][0]
-    np.testing.assert_array_equal(left, right)
+    model = _model(shape=(8, 2, 2), p=3)
+    dt = 1.5e-9
+    u0, v0 = model.zero_state()
+    u1, v1 = jax.jit(lambda u, v: leapfrog_solve_n(
+        model.force, np.asarray(model.damping), u, v, 0.0, dt, 60))(u0, v0)
+    sw = ShardedLinearWave(model, parts)
+    ub, vb, n = sw.solve_n(0.0, dt, 60, integrator="leapfrog")
+    assert n == 60
+    v1 = np.asarray(v1)
+    assert np.abs(v1).max() > 0
+    np.testing.assert_allclose(sw.to_global(ub), np.asarray(u1), rtol=1e-10,
+                               atol=1e-12 * np.abs(np.asarray(u1)).max())
+    np.testing.assert_allclose(sw.to_global(vb), v1, rtol=1e-10,
+                               atol=1e-12 * np.abs(v1).max())

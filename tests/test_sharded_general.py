@@ -143,7 +143,7 @@ def test_sharded_general_cg_matches_global(ndev, p, exchange):
     from wave_fenics_tpu.solvers.cg import cg as cg_ref
 
     m = jnp.asarray(md.m)
-    mv = lambda z: m * z - tau * md.ops.stiffness_indexed(
+    mv = lambda z: m * z - tau * md.ops.stiffness(
         jnp.asarray(z), md.c0)
     xg, kg, _ = cg_ref(mv, jnp.asarray(bg), kmax=80, rtol=1e-10,
                        precond=lambda r: r / m)
@@ -198,20 +198,3 @@ def test_exchange_modes_agree_bitwise_inputs():
                                atol=1e-14 * np.abs(a).max())
 
 
-@pytest.mark.parametrize("p", [4, 5])
-def test_sharded_general_fused_and_indexed_agree(p):
-    """The per-device fused windowed kernel and the XLA indexed local
-    apply must produce identical distributed solves. p=5 exercises the
-    split-row (rpc=2) packing across the partition."""
-    md = _perturbed_model(p=p, cells=(6, 4, 4) if p == 4 else (4, 3, 3),
-                          seed=5)
-    dt = 1e-9
-    sw_f = ShardedGeneralWave(md, 8, use_fused=True)
-    sw_x = ShardedGeneralWave(md, 8, use_fused=False)
-    assert sw_f._fused_setup is not None
-    assert sw_x._fused_setup is None
-    uf, vf, _ = sw_f.solve_n(0.0, dt, 5)
-    ux, vx, _ = sw_x.solve_n(0.0, dt, 5)
-    a, b = sw_f.to_global(vf), sw_x.to_global(vx)
-    np.testing.assert_allclose(a, b, rtol=1e-13,
-                               atol=1e-14 * np.abs(b).max())

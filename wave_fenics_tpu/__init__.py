@@ -1,15 +1,15 @@
-"""wave_fenics_tpu: TPU-native matrix-free spectral-element wave solver.
+"""wave_fenics_tpu: matrix-free spectral-element wave solver in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 Excalibur-SLE/wave-fenics (matrix-free high-order FEM for the linear
 second-order wave equation, GLL spectral elements on hexahedra, explicit RK4,
-matrix-free CG), built TPU-first:
+matrix-free CG), run on NVIDIA GPUs through XLA:
 
-- element operators are sum-factorized batched tensor contractions on the MXU
+- element operators are sum-factorized batched tensor contractions
 - dof gather/scatter on structured meshes is pure reshape/overlap-add
   (no atomics, deterministic)
 - distribution is SPMD domain decomposition over a ``jax.sharding.Mesh`` with
-  ``lax.ppermute`` halo exchange over ICI and ``lax.psum`` reductions
+  ``lax.ppermute`` halo exchange and ``lax.psum`` reductions
 """
 
 from . import core, models, ops, solvers  # noqa: F401

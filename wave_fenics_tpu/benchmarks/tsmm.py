@@ -4,7 +4,7 @@ The reference times two back-to-back cublasDgemm on [ndofs x ncells]
 matrices — interpolate to quadrature points and project back
 (demo/gpu_tsmm/main.cpp:12-68, ncells=100000, ndofs=125, GFLOPs =
 4*nc*nd^2/t). Here the same contraction pair is sum-factorized
-(interp3/interp3_t) so the MXU sees three batched [nq x nd] matmuls per
+(interp3/interp3_t) so the device sees three batched [nq x nd] matmuls per
 direction instead of one [nd^3 x nq^3] gemm — 2*3*nc*nq*nd flops per pass
 instead of 2*nc*nd^3*... The reported flops model keeps BOTH numbers:
 ``gflops_ref`` uses the reference's dense-gemm model for comparability,
@@ -20,7 +20,8 @@ import numpy as np
 
 from ..core.basis import tabulate_1d
 from ..ops.element_kernels import interp3, interp3_t
-from .common import (apply_platform, make_parser, report, resolve_dtype,
+from ..utils.device import enable_compile_cache
+from .common import (make_parser, report, resolve_dtype,
                      two_point_time)
 
 
@@ -28,7 +29,7 @@ def main():
     ap = make_parser(degree=4, reps=100)
     ap.add_argument("--ncells", type=int, default=100000)
     args = ap.parse_args()
-    apply_platform(args)
+    enable_compile_cache()
     dtype = resolve_dtype(args.dtype)
 
     p = args.degree
@@ -42,7 +43,7 @@ def main():
 
     reps = args.reps
 
-    # RTT-free two-point timing (one dynamic-trip executable; the body
+    # two-point timing (one dynamic-trip executable; the body
     # chains the carry so XLA cannot hoist it)
     t = two_point_time(
         lambda i, a: interp3_t(interp3(a, B), B)[:, :nd1, :nd1, :nd1],

@@ -1,6 +1,6 @@
 """1D GLL basis, quadrature, and tensor-product utilities.
 
-TPU-native re-derivation of the Basix-backed tabulation layer of the
+Re-derivation of the Basix-backed tabulation layer of the
 reference (wave-fenics):
 
 - GLL quadrature rule        -> ``basix::quadrature::make_quadrature(gll, hexahedron, q)``

@@ -11,7 +11,7 @@ Two representations:
 1. Structured (``StructuredDofGrid``): the global dof vector IS a 3D grid
    ``[Nx, Ny, Nz]`` with ``Nd = n_cells_d * p + 1``. Element dof tensors
    ``[nc, p+1, p+1, p+1]`` map to grid blocks by pure reshape/overlap-add
-   (see ops.gather_scatter) — zero indexed gather/scatter on TPU.
+   (see ops.gather_scatter) — zero indexed gather/scatter.
 
 2. General (``build_dofmap``): explicit ``dofmap[nc, (p+1)^3]`` built by
    geometric dedup of element node coordinates, for imported hex meshes.
@@ -111,7 +111,7 @@ def morton_cell_order(mesh: HexMesh, bits: int = 10) -> np.ndarray:
 
     Sorting cells along a space-filling curve makes neighboring cells (and
     hence their shared dofs) adjacent in the batch dimension — better
-    gather/scatter locality for the indexed operator family on TPU.
+    gather/scatter locality for the indexed operator family.
     """
     c = mesh.cell_coords().mean(axis=1)
     lo = c.min(axis=0)
@@ -143,8 +143,8 @@ def build_dofmap(
 
     ``reorder='appearance'`` (default) keeps the cell order but numbers
     dofs by first appearance in the cell-major traversal — consecutive
-    cells touch a narrow contiguous id range, which the fused windowed
-    operator (ops.general_tables) depends on. ``reorder='morton'``
+    cells touch a narrow contiguous id range, which keeps the indexed
+    operators' gathers local. ``reorder='morton'``
     additionally renumbers CELLS along a Z-order curve (for meshes whose
     native cell order has no locality); callers must then apply the same
     cell order to any per-cell data. ``reorder=None`` numbers dofs by
@@ -189,9 +189,8 @@ def build_dofmap(
         ndofs = uniq.shape[0]
     if reorder in ("morton", "appearance") and not appearance_numbered:
         # Renumber dofs by FIRST APPEARANCE in the cell-major traversal —
-        # the documented contract, and what the fused windowed operator
-        # (ops.general_tables) relies on: a run of consecutive cells then
-        # touches a narrow contiguous id range.
+        # the documented contract: a run of consecutive cells then
+        # touches a narrow contiguous id range (local gathers).
         # (np.unique/dedup numbers by sorted coordinate key instead.)
         _, first = np.unique(inv, return_index=True)
         order = np.argsort(first, kind="stable")  # old ids by appearance

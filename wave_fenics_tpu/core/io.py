@@ -9,6 +9,8 @@ demo/cpu_planar3d/main.cpp:40-45) so meshes produced for the reference
   from the referenced HDF5 (h5py) or inline XML, converts VTK/XDMF
   hexahedron vertex ordering to basix ordering, returns a HexMesh.
 - ``read_xdmf_meshtags``: facet tags (exterior boundary facets + values).
+- ``write_xdmf_mesh`` / ``write_xdmf_meshtags``: their inverses, with
+  inline XML data.
 - ``save_npz`` / ``load_npz``: native lightweight format.
 """
 
@@ -24,6 +26,8 @@ from .mesh import HexMesh
 __all__ = [
     "read_xdmf",
     "read_xdmf_meshtags",
+    "write_xdmf_mesh",
+    "write_xdmf_meshtags",
     "save_npz",
     "load_npz",
     "write_xdmf_rectilinear",
@@ -105,6 +109,60 @@ def read_xdmf_meshtags(
     if vals is None:
         raise ValueError("no Attribute (tag values) in meshtags grid")
     return facets, vals.ravel()
+
+
+def _xml_data_item(a: np.ndarray, fmt: str) -> str:
+    """An inline (Format="XML") DataItem holding ``a``."""
+    import io
+
+    buf = io.StringIO()
+    np.savetxt(buf, a.reshape(a.shape[0], -1), fmt=fmt)
+    dims = " ".join(str(d) for d in a.shape)
+    return (f'<DataItem Dimensions="{dims}" Format="XML">\n'
+            f"{buf.getvalue()}</DataItem>")
+
+
+def write_xdmf_mesh(path: str, mesh: HexMesh) -> None:
+    """Write a hexahedral mesh as XDMF with inline XML data — the inverse
+    of :func:`read_xdmf`, needing no HDF5. Coordinates keep 17
+    significant digits, so they read back exactly."""
+    cells = np.asarray(mesh.cells)[:, np.argsort(_VTK_TO_BASIX)]
+    with open(path, "w") as f:
+        f.write(f"""<?xml version="1.0"?>
+<Xdmf Version="3.0"><Domain>
+<Grid Name="mesh">
+<Topology TopologyType="Hexahedron" NumberOfElements="{len(cells)}">
+{_xml_data_item(cells, "%d")}
+</Topology>
+<Geometry GeometryType="XYZ">
+{_xml_data_item(np.asarray(mesh.points, np.float64), "%.17g")}
+</Geometry>
+</Grid>
+</Domain></Xdmf>
+""")
+
+
+def write_xdmf_meshtags(path: str, facets: np.ndarray,
+                        values: np.ndarray) -> None:
+    """Write facet tags as an XDMF quadrilateral grid with inline XML data
+    — the inverse of :func:`read_xdmf_meshtags`. ``facets`` [n, 4] are
+    in tensor (basix) vertex order and are written perimeter-wound, as
+    XDMF/VTK quads are."""
+    quads = np.asarray(facets)[:, [0, 1, 3, 2]]
+    vals = np.asarray(values).reshape(-1, 1)
+    with open(path, "w") as f:
+        f.write(f"""<?xml version="1.0"?>
+<Xdmf Version="3.0"><Domain>
+<Grid Name="facet_tags">
+<Topology TopologyType="Quadrilateral" NumberOfElements="{len(quads)}">
+{_xml_data_item(quads, "%d")}
+</Topology>
+<Attribute Name="tags" Center="Cell">
+{_xml_data_item(vals, "%d")}
+</Attribute>
+</Grid>
+</Domain></Xdmf>
+""")
 
 
 def write_xdmf_rectilinear(

@@ -1,4 +1,4 @@
-"""Hexahedral meshes: structured boxes (TPU fast path) and general hex meshes.
+"""Hexahedral meshes: structured boxes (the fast path) and general hex meshes.
 
 Replaces the DOLFINx mesh layer consumed by the reference:
 - ``mesh::create_box`` (demo/gpu_operator/main.cpp:60-72, etc.)
@@ -8,7 +8,7 @@ Replaces the DOLFINx mesh layer consumed by the reference:
   :mod:`wave_fenics_tpu.core.io` for the import path.
 - cell-size query ``mesh::h`` (demo/cpu_planar3d/main.cpp:52-58)
 
-Design note (TPU-first): the solver's hot path never touches mesh topology —
+Design note: the solver's hot path never touches mesh topology —
 for structured boxes, dof gather/scatter is pure reshape/overlap-add (see
 ops.gather_scatter) and geometry factors are closed-form. The general
 ``HexMesh`` path supports imported/unstructured hex meshes via an explicit
@@ -53,7 +53,7 @@ class FacetTags:
 
 @dataclass(frozen=True)
 class StructuredBoxMesh:
-    """Axis-aligned box of uniform hex cells — the TPU-native mesh.
+    """Axis-aligned box of uniform hex cells — the fast-path mesh.
 
     shape:  number of cells per axis (nx, ny, nz)
     extent: physical lengths (Lx, Ly, Lz)

@@ -1,1 +1,1 @@
-from . import diagnostics, general_wave, linear_wave, linear_wave_padded, planar3d  # noqa: F401
+from . import diagnostics, general_wave, linear_wave, planar3d  # noqa: F401

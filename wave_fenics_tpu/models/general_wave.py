@@ -259,9 +259,9 @@ class GeneralLinearWave:
 
     def solve(self, t0, tf, dt, u0=None, v0=None):
         """End-to-end solve, compiled with operator tables hoisted to
-        runtime arguments (utils.closure.hoisted_jit) — closing the
-        fused-kernel tables into the scan as HLO literals rejects the
-        compile at production mesh sizes (remote 413)."""
+        runtime arguments (utils.closure.hoisted_jit) rather than closed
+        into the scan as HLO literals (hundreds of MB at production mesh
+        sizes)."""
         from ..utils.closure import hoisted_jit
 
         if u0 is None:

@@ -1,6 +1,6 @@
 """Linear second-order wave equation with source and absorbing boundaries.
 
-TPU-native re-design of the reference model layer:
+Re-design of the reference model layer:
 - ``LinearGLLOpt``     (common/LinearGLL.hpp:37-288): lumped mass, source
   windowing, RK4 driver
 - the UFL boundary form (demo/cpu_planar3d/forms.ufl:21-24):

@@ -104,8 +104,8 @@ def planar3d_case_xdmf(
     """The planar3d case on an IMPORTED mesh — the reference's actual
     workflow (demo/cpu_planar3d/main.cpp:39-45 reads mesh + facet
     meshtags from XDMF; ds(1) = source, ds(2) = absorbing). The model is
-    the explicit-dofmap ``GeneralLinearWave`` (fused windowed Pallas
-    operators on TPU); dt uses the same CFL-snap as the box case
+    the explicit-dofmap ``GeneralLinearWave`` (indexed gather/scatter
+    operators); dt uses the same CFL-snap as the box case
     (main.cpp:61-66) with hmin measured on the imported geometry, and
     tf = Lx/c0 + tail with Lx the mesh's x-extent (main.cpp:64)."""
     import jax.numpy as jnp

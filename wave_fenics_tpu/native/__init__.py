@@ -11,8 +11,7 @@ import ctypes
 
 import numpy as np
 
-__all__ = ["available", "geometry_factors", "dedup_dofs", "box_cells",
-           "assign_chains"]
+__all__ = ["available", "geometry_factors", "dedup_dofs", "box_cells"]
 
 _lib = None
 
@@ -49,33 +48,6 @@ def _load():
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64),
     ]
-    if hasattr(lib, "scatter_merge_batch"):
-        lib.scatter_merge_batch.restype = ctypes.c_int64
-        lib.scatter_merge_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_int8), ctypes.POINTER(ctypes.c_int8),
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int8), ctypes.POINTER(ctypes.c_int8),
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int16),
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int16),
-            ctypes.POINTER(ctypes.c_int64),
-        ]
-    if hasattr(lib, "assign_chains"):
-        lib.assign_chains.restype = ctypes.c_int64
-        lib.assign_chains.argtypes = (
-            [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 2
-            + [ctypes.POINTER(ctypes.c_int64)] + [ctypes.c_int64] * 9
-            + [ctypes.POINTER(ctypes.c_int16),
-               ctypes.POINTER(ctypes.c_uint8),
-               ctypes.POINTER(ctypes.c_int16),
-               ctypes.POINTER(ctypes.c_int16),
-               ctypes.POINTER(ctypes.c_uint8),
-               ctypes.POINTER(ctypes.c_int16),
-               ctypes.POINTER(ctypes.c_uint8),
-               ctypes.POINTER(ctypes.c_uint8)]
-        )
     _lib = lib
     return _lib
 
@@ -120,73 +92,6 @@ def dedup_dofs(keys: np.ndarray) -> tuple[np.ndarray, int]:
     ids = np.empty(k.shape[0], dtype=np.int32)
     n = lib.dedup_dofs(_ptr(k, ctypes.c_int64), k.shape[0], _ptr(ids, ctypes.c_int32))
     return ids, int(n)
-
-
-def assign_chains(
-    dofs: np.ndarray, est: np.ndarray, *, He: int, H: int, R2: int,
-    rpc: int, npl: int, cpr: int, max_g: int, max_s: int,
-):
-    """One batch of fused-kernel chain assignment (native path of
-    ops.general_tables.build_batch_tables pass 2).
-
-    Returns (g_lane, g_set, g_row, s_row, s_nlane, s_used, keep) with
-    the chain axes at max_g/max_s (caller trims unused chains)."""
-    lib = _load()
-    assert lib and hasattr(lib, "assign_chains"), "native lib unavailable"
-    d = np.ascontiguousarray(dofs, dtype=np.int64)
-    e = np.ascontiguousarray(est, dtype=np.int64)
-    ncand, nd = d.shape
-    R = rpc * R2
-    g_lane = np.zeros((max_g, H, 128), np.int16)
-    g_set = np.zeros((max_g, H, 128), np.uint8)
-    g_row = np.full((max_g, R, 128), H - 1, np.int16)
-    s_row = np.zeros((max_s, H, 128), np.int16)
-    s_set = np.zeros((max_s, H, 128), np.uint8)
-    # scatter sentinel: logical 128 (int8 storage later wraps to -128)
-    s_nlane = np.full((max_s, H, 128), 128, np.int16)
-    s_used = np.zeros((max_s, H, 128), np.uint8)
-    keep = np.zeros(ncand, np.uint8)
-    lib.assign_chains(
-        _ptr(d, ctypes.c_int64), ncand, nd, _ptr(e, ctypes.c_int64),
-        len(e), He, H, R2, rpc, npl, cpr, max_g, max_s,
-        _ptr(g_lane, ctypes.c_int16), _ptr(g_set, ctypes.c_uint8),
-        _ptr(g_row, ctypes.c_int16), _ptr(s_row, ctypes.c_int16),
-        _ptr(s_set, ctypes.c_uint8), _ptr(s_nlane, ctypes.c_int16),
-        _ptr(s_used, ctypes.c_uint8), _ptr(keep, ctypes.c_uint8),
-    )
-    return g_lane, g_set, g_row, s_row, s_nlane, s_used, keep
-
-
-def scatter_merge_batch(
-    s_row: np.ndarray, s_nlane: np.ndarray, *, max_chains: int,
-    max_rounds: int, max_out: int = 8,
-):
-    """One batch of scatter-merge encoding (native path of
-    ops.general_tables.build_scatter_merge).
-
-    Returns (rounds_used, A, B, out_row, out_nlane, ks_used);
-    rounds_used < 0 signals failure (caller falls back to Python)."""
-    lib = _load()
-    assert lib and hasattr(lib, "scatter_merge_batch")
-    sr = np.ascontiguousarray(s_row, np.int8)
-    sn = np.ascontiguousarray(s_nlane, np.int8)
-    Ks, H = sr.shape[0], sr.shape[1]
-    A = np.zeros((max_rounds, 128, 128), np.int8)
-    B = np.full((max_rounds, 128, 128), -128, np.int8)  # masked sentinel
-    a_used = np.zeros((max_rounds, 128, 128), np.uint8)
-    out_row = np.zeros((max_out, H, 128), np.int16)
-    out_set = np.zeros((max_out, H, 128), np.uint8)
-    out_nlane = np.full((max_out, H, 128), 128, np.int16)  # sentinel
-    ks_used = np.zeros(1, np.int64)
-    rounds = lib.scatter_merge_batch(
-        _ptr(sr, ctypes.c_int8), _ptr(sn, ctypes.c_int8), Ks, H,
-        max_chains, max_rounds, max_out,
-        _ptr(A, ctypes.c_int8), _ptr(B, ctypes.c_int8),
-        _ptr(a_used, ctypes.c_uint8), _ptr(out_row, ctypes.c_int16),
-        _ptr(out_set, ctypes.c_uint8), _ptr(out_nlane, ctypes.c_int16),
-        _ptr(ks_used, ctypes.c_int64),
-    )
-    return int(rounds), A, B, out_row, out_nlane, int(ks_used[0])
 
 
 def box_cells(nx: int, ny: int, nz: int) -> np.ndarray:

@@ -1,11 +1,11 @@
 // wavecore: native host-precompute kernels for wave_fenics_tpu.
 //
-// TPU-native equivalent of the reference's C++ host layer: the per-cell
+// Equivalent of the reference's C++ host layer: the per-cell
 // geometry precompute loops (common/precomputation.hpp:69-101,
 // common/precompute.hpp:49-176) and the dof-identification machinery that
 // DOLFINx provides to the reference (dofmap construction). The JAX/NumPy
 // paths remain as the portable fallback; this library accelerates setup for
-// large unstructured meshes (the device compute path stays XLA/Pallas).
+// large unstructured meshes (the device compute path stays XLA).
 //
 // Exposed as a plain C ABI (loaded via ctypes; no Python.h dependency).
 // Build: see build.py (g++ -O3 -shared -fPIC).
@@ -128,234 +128,6 @@ void box_cells(int64_t nx, int64_t ny, int64_t nz, int64_t* out_cells) {
         for (int v = 0; v < 8; ++v)
           out_cells[c * 8 + v] =
               (i + off[v][0]) * sx + (j + off[v][1]) * sy + (k + off[v][2]);
-}
-
-// ---------------------------------------------------------------------------
-// Gather/scatter chain assignment for one batch of the fused
-// unstructured-dofmap kernel (ops/general_tables.py pass 2 — the hot
-// host-setup loop; semantics documented there). Sequential per-node
-// first-fit with an undo log: a cell that exceeds the chain budget rolls
-// its claims back and is spilled (keep[b] = 0). Sequential assignment is
-// a refinement of the Python builder's vectorized one (same-lane
-// duplicate keys may share a chain instead of deferring); any assignment
-// satisfying the claim invariants reproduces gather/scatter exactly.
-//
-// dofs:  [ncand, nd] int64 dof ids (cells at slots 0..ncand-1)
-// est:   [E] int64 extent start rows (disjoint, increasing)
-// Tables are caller-initialized to their sentinels:
-//   g_lane [max_g, H, 128] int16 = 0,  g_set [max_g, H, 128] u8 = 0
-//   g_row  [max_g, R, 128] int16 = H-1
-//   s_row  [max_s, H, 128] int16 = 0,  s_set [max_s, H, 128] u8 = 0
-//   s_nlane[max_s, H, 128] int16 = 128 (the masked out-of-range lane
-//   sentinel; int8 storage wraps to -128), s_used [max_s, H, 128] u8 = 0
-// keep:  [ncand] u8 out. Returns the number of kept cells.
-// ---------------------------------------------------------------------------
-int64_t assign_chains(const int64_t* dofs, int64_t ncand, int64_t nd,
-                      const int64_t* est, int64_t E, int64_t He, int64_t H,
-                      int64_t R2, int64_t rpc, int64_t npl, int64_t cpr,
-                      int64_t max_g, int64_t max_s, int16_t* g_lane,
-                      uint8_t* g_set, int16_t* g_row, int16_t* s_row,
-                      uint8_t* s_set, int16_t* s_nlane, uint8_t* s_used,
-                      uint8_t* keep) {
-  const int64_t HL = H * 128, RL = rpc * R2 * 128;
-  struct U16 { int16_t* p; int16_t v; };
-  struct U8 { uint8_t* p; uint8_t v; };
-  std::vector<U16> log16;
-  std::vector<U8> log8;
-  log16.reserve(4 * nd);
-  log8.reserve(4 * nd);
-  auto w16 = [&](int16_t* p, int16_t v) {
-    log16.push_back({p, *p});
-    *p = v;
-  };
-  auto w8 = [&](uint8_t* p, uint8_t v) {
-    log8.push_back({p, *p});
-    *p = v;
-  };
-  int64_t kept = 0;
-  for (int64_t b = 0; b < ncand; ++b) {
-    log16.clear();
-    log8.clear();
-    bool ok = true;
-    const int64_t* cd = dofs + b * nd;
-    for (int64_t n = 0; n < nd && ok; ++n) {
-      const int64_t dof = cd[n];
-      const int64_t g = dof >> 7, l = dof & 127;
-      // packed (element row, lane) of node n in slot b
-      const int64_t r = b / cpr + (rpc == 1 ? 0 : (n / npl) * R2);
-      const int64_t lo = rpc == 1 ? (b % cpr) * nd + n : n % npl;
-      int64_t e = E - 1;
-      while (e > 0 && est[e] > g) --e;
-      const int64_t t = e * He + (g - est[e]);
-      const int64_t tl = t * 128 + lo;
-      bool hit = false;
-      for (int64_t k = 0; k < max_g; ++k) {
-        int16_t* lane = g_lane + k * HL + tl;
-        uint8_t* set = g_set + k * HL + tl;
-        if (!*set || *lane == (int16_t)l) {
-          if (!*set) {
-            w16(lane, (int16_t)l);
-            w8(set, 1);
-          }
-          w16(g_row + k * RL + r * 128 + lo, (int16_t)t);
-          hit = true;
-          break;
-        }
-      }
-      ok = hit;
-    }
-    for (int64_t n = 0; n < nd && ok; ++n) {
-      const int64_t dof = cd[n];
-      const int64_t g = dof >> 7, l = dof & 127;
-      const int64_t r = b / cpr + (rpc == 1 ? 0 : (n / npl) * R2);
-      const int64_t lo = rpc == 1 ? (b % cpr) * nd + n : n % npl;
-      int64_t e = E - 1;
-      while (e > 0 && est[e] > g) --e;
-      const int64_t t = e * He + (g - est[e]);
-      const int64_t tl = t * 128 + lo, tlane = t * 128 + l;
-      bool hit = false;
-      for (int64_t j = 0; j < max_s; ++j) {
-        if (s_used[j * HL + tlane]) continue;
-        int16_t* row = s_row + j * HL + tl;
-        uint8_t* set = s_set + j * HL + tl;
-        if (!*set || *row == (int16_t)r) {
-          if (!*set) {
-            w16(row, (int16_t)r);
-            w8(set, 1);
-          }
-          w16(s_nlane + j * HL + tlane, (int16_t)lo);
-          w8(s_used + j * HL + tlane, 1);
-          hit = true;
-          break;
-        }
-      }
-      ok = hit;
-    }
-    if (ok) {
-      keep[b] = 1;
-      ++kept;
-    } else {
-      keep[b] = 0;
-      for (auto it = log16.rbegin(); it != log16.rend(); ++it) *it->p = it->v;
-      for (auto it = log8.rbegin(); it != log8.rend(); ++it) *it->p = it->v;
-    }
-  }
-  return kept;
-}
-
-// ---------------------------------------------------------------------------
-// Scatter-merge encoding for one batch (ops/general_tables.py
-// build_scatter_merge — element-space claim pre-reduction): decode the
-// per-window-dof claim lists from the chain tables, binary-tree merge
-// each list down to <= max_chains claims (allocating A/B merge-round
-// entries under their key constraints), and rebuild the residual chains
-// first-fit. Returns rounds used (0 = nothing merged), -1 when a list
-// cannot reduce within max_rounds, -2 when residual chains exceed
-// max_out; on any negative return the caller falls back to Python.
-//
-// s_row/s_nlane: [Ks, H, 128] int8 chain tables of this batch
-// (scatter sentinel: -128 stored = logical lane 128, masked in-kernel)
-// A [max_rounds,128,128] int8 0-init, Bm (-128)-init, a_used u8 0-init
-// out_row [max_out, H, 128] int16 0-init, out_set u8 0-init,
-// out_nlane [max_out, H, 128] int16 128-init; ks_used out.
-// ---------------------------------------------------------------------------
-int64_t scatter_merge_batch(const int8_t* s_row, const int8_t* s_nlane,
-                            int64_t Ks, int64_t H, int64_t max_chains,
-                            int64_t max_rounds, int64_t max_out, int8_t* A,
-                            int8_t* Bm, uint8_t* a_used, int16_t* out_row,
-                            uint8_t* out_set, int16_t* out_nlane,
-                            int64_t* ks_used) {
-  constexpr int8_t kSent8 = (int8_t)-128;  // logical lane 128, masked
-  const int64_t HL = H * 128;
-  // claim lists per window dof (t, l), ordered by chain index
-  std::vector<std::pair<int32_t, std::array<int8_t, 2>>> flat;  // (tl,(r,c))
-  flat.reserve((size_t)(Ks * 128));
-  for (int64_t j = 0; j < Ks; ++j)
-    for (int64_t t = 0; t < H; ++t)
-      for (int64_t l = 0; l < 128; ++l) {
-        const int8_t c = s_nlane[j * HL + t * 128 + l];
-        if (c == kSent8) continue;
-        const int8_t r = s_row[j * HL + t * 128 + c];
-        flat.push_back({(int32_t)(t * 128 + l), {r, c}});
-      }
-  // group by (t, l) preserving chain order (stable sort on key)
-  std::stable_sort(flat.begin(), flat.end(),
-                   [](const auto& a, const auto& b) {
-                     return a.first < b.first;
-                   });
-  int64_t rounds_used = 0;
-  std::vector<std::array<int8_t, 2>> lst, nxt;
-  size_t i0 = 0;
-  // merged residual claims per key, emitted into the first-fit below
-  std::vector<std::pair<int32_t, std::array<int8_t, 2>>> residual;
-  residual.reserve(flat.size());
-  while (i0 < flat.size()) {
-    size_t i1 = i0;
-    while (i1 < flat.size() && flat[i1].first == flat[i0].first) ++i1;
-    lst.clear();
-    for (size_t k = i0; k < i1; ++k) lst.push_back(flat[k].second);
-    int64_t rnd = 0;
-    while ((int64_t)lst.size() > max_chains) {
-      if (rnd >= max_rounds) return -1;
-      nxt.clear();
-      int8_t* Ar = A + rnd * 128 * 128;
-      int8_t* Br = Bm + rnd * 128 * 128;
-      uint8_t* Au = a_used + rnd * 128 * 128;
-      for (size_t k = 0; k < lst.size(); k += 2) {
-        if (k + 1 >= lst.size()) {
-          nxt.push_back(lst[k]);
-          break;
-        }
-        bool placed = false;
-        for (int ord = 0; ord < 2 && !placed; ++ord) {
-          const auto& kk = ord ? lst[k + 1] : lst[k];
-          const auto& dd = ord ? lst[k] : lst[k + 1];
-          const int r1 = kk[0], c1 = kk[1], r2 = dd[0], c2 = dd[1];
-          if ((!Au[c2 * 128 + r1] || Ar[c2 * 128 + r1] == (int8_t)r2) &&
-              Br[r1 * 128 + c1] == kSent8) {
-            Ar[c2 * 128 + r1] = (int8_t)r2;
-            Au[c2 * 128 + r1] = 1;
-            Br[r1 * 128 + c1] = (int8_t)c2;
-            nxt.push_back(kk);
-            placed = true;
-          }
-        }
-        if (!placed) {
-          nxt.push_back(lst[k]);
-          nxt.push_back(lst[k + 1]);
-        }
-      }
-      lst.swap(nxt);
-      ++rnd;
-    }
-    if (rnd > rounds_used) rounds_used = rnd;
-    for (const auto& rc : lst) residual.push_back({flat[i0].first, rc});
-    i0 = i1;
-  }
-  // residual chains: first-fit on the (t, c) row-table key
-  int64_t nch = 0;
-  for (const auto& e : residual) {
-    const int64_t t = e.first >> 7, l = e.first & 127;
-    const int r = e.second[0], c = e.second[1];
-    int64_t j = 0;
-    for (;; ++j) {
-      if (j >= max_out) return -2;
-      if (j == nch) nch = j + 1;
-      int16_t* row = out_row + j * HL + t * 128 + c;
-      uint8_t* set = out_set + j * HL + t * 128 + c;
-      int16_t* lane = out_nlane + j * HL + t * 128 + l;
-      if (!*set || *row == (int16_t)r) {
-        if (*lane == 128) {
-          *row = (int16_t)r;
-          *set = 1;
-          *lane = (int16_t)c;
-          break;
-        }
-      }
-    }
-  }
-  *ks_used = nch;
-  return rounds_used;
 }
 
 }  // extern "C"

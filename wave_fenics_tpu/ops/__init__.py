@@ -2,11 +2,7 @@ from . import (  # noqa: F401
     assembled,
     element_kernels,
     gather_scatter,
-    general_tables,
     la,
     operators,
-    pallas_general,
-    pallas_stiffness,
-    pallas_wave,
     separable,
 )

@@ -4,8 +4,8 @@ The reference's alternative operator family (demo/gpu_cg/operators.hpp):
 - ``assemble_element_tensor``: dense per-element matrices A_e
   (common/precompute.hpp:202-232)
 - ``EAOperator``: stored-A_e matvec, gather -> A_e x_e -> scatter, with an
-  optional libxsmm JIT batched gemm (operators.hpp:127-201). On TPU the
-  batched [nc, nd, nd] x [nc, nd] gemm IS the natural MXU op — no JIT
+  optional libxsmm JIT batched gemm (operators.hpp:127-201). Here the
+  batched [nc, nd, nd] x [nc, nd] gemm is one XLA batched matmul — no JIT
   library needed.
 - ``PETScOperator``: assembled-sparse baseline (operators.hpp:72-124).
   Here: a SciPy CSR global matrix (host oracle / comparison baseline) and
@@ -70,7 +70,7 @@ class EAOperator:
     """Element-assembly matvec: y = scatter(A_e @ gather(x)).
 
     The stored-dense-element-matrix operator (operators.hpp:127-201); the
-    per-cell gemm runs as ONE batched MXU matmul over all cells.
+    per-cell gemm runs as ONE batched matmul over all cells.
     """
 
     dofs: GeneralDofMap

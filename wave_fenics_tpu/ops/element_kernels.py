@@ -1,13 +1,12 @@
-"""Sum-factorized element kernels: batched 1D tensor contractions on the MXU.
+"""Sum-factorized element kernels: batched 1D tensor contractions.
 
-This is the representational shift that makes the solver TPU-native
+This is the representational shift at the core of the solver
 (SURVEY.md §7): the reference tabulates the 1D building block
 (``tabulate_1d``, common/precompute.hpp:179-189) but its kernels contract the
 full nd x nq table per element (common/cuda/mass_kernel.cu:22-32,
 common/operators.hpp:112-133). Here every operator is expressed as three
 batched 1D contractions per tensor direction — O(m^4) per cell instead of
-O(m^6), and each contraction is one big batched matmul that XLA tiles onto
-the MXU (the ``gpu_tsmm``/``gpu_operator`` Dgemm pipeline, generalized).
+O(m^6), and each contraction is one big batched matmul for XLA (the ``gpu_tsmm``/``gpu_operator`` Dgemm pipeline, generalized).
 
 Element tensors: ``u[c, i, j, k]`` with i->x, j->y, k->z (C-order, z fastest).
 Tables: ``B[q, i]`` (values), ``D[q, i]`` (derivatives) from core.basis.

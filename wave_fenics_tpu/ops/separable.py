@@ -19,7 +19,7 @@ factors into the overlap-added lines L_y/L_z.
 
 Versus the generic per-cell path (ops.element_kernels.stiffness_element_diag
 + 3D gather/scatter), this does 3 one-axis passes with no 3D cell tensors —
-~5x less HBM traffic, which is what the operator is bound by on TPU.
+~5x less HBM traffic, which is what the operator is bound by.
 Used automatically by StructuredOperators; the per-cell path remains for
 distorted/imported meshes and as the oracle.
 """
@@ -59,7 +59,7 @@ def separable_stiffness_tables(
 
 
 # Contraction specs per gathered axis: contract the node dim (axis+1) with
-# A[i, m] in place, leaving the minor (lane) dims untouched.
+# A[i, m] in place, leaving the other dims untouched.
 _AXIS_EINSUM = {0: "im,nmbc->nibc", 1: "im,anmc->anic", 2: "im,abnm->abni"}
 
 

@@ -3,6 +3,5 @@ from . import (  # noqa: F401
     halo,
     partition,
     sharded_general,
-    sharded_padded,
     sharded_wave,
 )

@@ -1,13 +1,13 @@
 """Halo exchange over the device mesh: ppermute face-slab add.
 
-TPU-native replacement for the reference's CUDA-aware-MPI ``VectorUpdater``
+Replacement for the reference's CUDA-aware-MPI ``VectorUpdater``
 (demo/gpu_scatter_mpi/VectorUpdater.hpp:21-230):
 
 - variable-size per-neighbor pack/unpack index lists  ->  fixed-shape face
   slabs of the local dof grid (interface planes are *duplicated* on both
   neighboring devices, see parallel.partition)
 - MPI_Irecv/MPI_Send on device pointers              ->  ``lax.ppermute``
-  over ICI, one shift per direction per axis
+  (NCCL on GPUs), one shift per direction per axis
 - update_rev (ghost -> owner add) followed by update_fwd (owner -> ghost)
   ->  a single **halo-add**: after each side adds the neighbor's partial
   plane, both duplicated copies hold the full sum, so no second

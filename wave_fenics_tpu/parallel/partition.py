@@ -4,7 +4,7 @@ Replaces the reference's MPI-rank Cartesian partitioner
 (``decompose3d`` + process-grid setup, demo/gpu_cg/mesh.hpp:37-112) and the
 owned+ghost IndexMap representation (DOLFINx ``common::IndexMap``).
 
-TPU-native representation: the global dof grid is stored in **blocked**
+Representation: the global dof grid is stored in **blocked**
 form ``[mx, my, mz, gxl, gyl, gzl]`` where (mx, my, mz) is the device-mesh
 shape and each block is the local dof grid of one device *including the
 shared interface planes* (duplicated with the neighbor and kept consistent

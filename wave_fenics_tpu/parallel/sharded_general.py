@@ -3,7 +3,7 @@
 The reference distributes arbitrary partitioned DOLFINx meshes with MPI
 neighbor all-to-all over owned/ghost index maps
 (demo/gpu_scatter_mpi/VectorUpdater.hpp:21-230, DOLFINx common::IndexMap).
-The TPU-native redesign keeps the *capability* — any hex mesh, any cell
+The redesign keeps the *capability* — any hex mesh, any cell
 partition — but re-expresses the variable-size per-neighbor machinery as
 fixed-shape sharded tables + XLA collectives under ``shard_map``:
 
@@ -19,7 +19,7 @@ fixed-shape sharded tables + XLA collectives under ``shard_map``:
     traffic; best for small fleets;
   * ``ppermute``: the VectorUpdater-faithful NEIGHBOR exchange
     (VectorUpdater.hpp:106-152's MPI_Dist_graph point-to-point,
-    re-expressed for ICI): pairwise dof buckets between parts that
+    re-expressed for XLA collectives): pairwise dof buckets between parts that
     actually share interface dofs, greedily edge-colored into rounds of
     disjoint pairs, one ``lax.ppermute`` per round — O(max_degree *
     max_bucket) traffic per device, independent of fleet size;
@@ -28,7 +28,7 @@ fixed-shape sharded tables + XLA collectives under ``shard_map``:
   structured paths.
 
 All shapes are static (padded to per-fleet maxima), so the whole solve
-jits into one XLA program per device with ICI collectives.
+jits into one XLA program per device; its collectives go to NCCL on GPUs.
 """
 
 from __future__ import annotations
@@ -75,16 +75,13 @@ def rcb_partition(points: np.ndarray, nparts: int) -> np.ndarray:
 class ShardedGeneralWave:
     """Distributed GeneralLinearWave over a 1D device mesh ('d').
 
-    The local matrix-free apply runs the fused windowed Pallas kernel
-    (ops.pallas_general) when the degree/mesh admit it — per-device
-    window/chain tables padded to fleet maxima so ONE compiled program
-    serves every device — and the XLA indexed path otherwise
-    (``use_fused=False`` pins the baseline)."""
+    Each device applies the indexed stiffness to its own cells (local
+    dofmaps and geometric factors padded to fleet maxima, so ONE
+    compiled program serves every device)."""
 
     model: GeneralLinearWave
     ndev: int
     devices: object = None
-    use_fused: bool = True
     #: interface-assembly collective: 'allgather' (one all_gather +
     #: gather-sum), 'ppermute' (edge-colored pairwise neighbor rounds),
     #: or 'auto' (cheaper per-device traffic)
@@ -275,175 +272,10 @@ class ShardedGeneralWave:
                 if ns["NR"] * ns["Sb"] < self.ndev * s["S"]
                 else "allgather")
 
-    @cached_property
-    def _fused_setup(self):
-        """Per-device fused-kernel tables padded to fleet maxima, or None
-        when the fused path does not apply (p > 6 / excessive spill).
-        p == 5/6 cells pack as split rows (rpc = 2/3), same as the
-        single-device path."""
-        if not self.use_fused:
-            return None
-        md = self.model
-        nd = (md.p + 1) ** 3
-        if nd > 3 * 128:
-            return None
-        from ..ops.general_tables import (
-            build_batch_tables, pack_cell_values,
-        )
-
-        s = self._setup
-        npdt = np.dtype(md.dtype)
-        sym = [(0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2)]
-        for H, E in ((128, 1), (256, 1), (256, 4)):
-            tbs = []
-            nspill = 0
-            for i in range(self.ndev):
-                nc_i = len(s["cells_of"][i])
-                tb = build_batch_tables(
-                    s["ldof"][i, :nc_i].astype(np.int64),
-                    len(s["loc_ids"][i]), tile_h=H, extents=E,
-                    max_spill_frac=0.5,
-                )
-                tbs.append(tb)
-                nspill += len(tb.spill_cells)
-            if nspill <= 0.02 * md.mesh.ncells:
-                break
-        if nspill > 0.5 * md.mesh.ncells:
-            return None
-        NB = max(tb.nbatch for tb in tbs)
-        KG = max(tb.kg for tb in tbs)
-        KS = max(tb.ks for tb in tbs)
-        # sparse gather tail -> per-entry overflow slots (same encoding
-        # as the single-device path; fleet-padded). Falls back to dense
-        # chains when any device's tail exceeds the slot budget.
-        from ..ops.general_tables import build_gather_overflow
-
-        n_ov = 0
-        ovs = None
-        if KG > 2:
-            ovs = [build_gather_overflow(tb) for tb in tbs]
-            if all(o is not None or tb.kg <= 2
-                   for o, tb in zip(ovs, tbs)):
-                KG = min(KG, 2)
-                n_ov = max(o.slots for o in ovs if o is not None)
-            else:
-                ovs = None
-        # scatter-merge pre-reduction: per-device encodings; a device
-        # whose claims don't reduce keeps its plain chains and runs the
-        # shared program's merge rounds as sentinel no-ops (the masked
-        # out-of-range B sentinel adds nothing)
-        from ..ops.general_tables import build_scatter_merge
-
-        mgs = [build_scatter_merge(tb) for tb in tbs]
-        NR = max((m.nrounds for m in mgs if m is not None), default=0)
-        if NR:
-            KS = max(m.ks if m is not None else tb.ks
-                     for m, tb in zip(mgs, tbs))
-        R = tbs[0].R
-        nrows = max(tb.padded_rows for tb in tbs)
-        nrows = max(nrows, -(-s["NLP"] // 128), H)
-        nsp = max((len(tb.spill_cells) for tb in tbs), default=0)
-
-        from ..ops.pallas_general import transposed_row_tables
-
-        # E-major: the kernel's scalar-prefetch layout (minor dim is
-        # SMEM-lane-padded to 128, so nbatch must be minor)
-        start = np.zeros((self.ndev, tbs[0].extents, NB), np.int32)
-        g_lane = np.zeros((self.ndev, KG, NB, H, 128), np.int8)
-        g_rowt = np.full(
-            (self.ndev, KG, NB, 128, 128),
-            np.array(H - 1, np.int64).astype(tbs[0].g_row.dtype),
-            tbs[0].g_row.dtype,
-        )
-        s_rowt = np.zeros((self.ndev, KS, NB, 128, H), np.int8)
-        # scatter/merge sentinels: -128 stored (= masked logical 128)
-        s_nlane = np.full((self.ndev, KS, NB, H, 128), -128, np.int8)
-        ovt = np.zeros((self.ndev, max(n_ov, 1), NB, 4, 128), np.int16)
-        ovt[:, :, :, 0, :] = H - 1
-        ovt[:, :, :, 3, :] = 127  # any lane: padding entries add v = 0
-        mA = np.zeros((self.ndev, max(NR, 1), NB, 128, 128), np.int8)
-        mB = np.full((self.ndev, max(NR, 1), NB, 128, 128), -128,
-                     np.int8)
-        geo = np.zeros((self.ndev, 6, NB, R, 128), npdt)
-        # spill subset (XLA indexed per device), padded
-        sp_dof = np.full((self.ndev, max(nsp, 1), nd), s["NL"], np.int32)
-        sp_G = np.zeros(
-            (self.ndev, max(nsp, 1)) + s["G"].shape[2:], npdt
-        )
-        for i, tb in enumerate(tbs):
-            start[i, :, : tb.nbatch] = tb.start_rows.T
-            kg_i = min(tb.kg, KG)
-            g_lane[i, :kg_i, : tb.nbatch] = tb.g_lane[:kg_i]
-            grt, srt = transposed_row_tables(tb)
-            g_rowt[i, :kg_i, : tb.nbatch] = grt[:kg_i]
-            if ovs is not None and ovs[i] is not None:
-                ovt[i, : ovs[i].slots, : tb.nbatch] = ovs[i].tab
-            if NR and mgs[i] is not None:
-                mg = mgs[i]
-                s_rowt[i, : mg.ks, : tb.nbatch] = np.swapaxes(
-                    mg.s_row, 2, 3
-                )
-                s_nlane[i, : mg.ks, : tb.nbatch] = mg.s_nlane
-                mA[i, : mg.nrounds, : tb.nbatch] = mg.A
-                mB[i, : mg.nrounds, : tb.nbatch] = mg.B
-            else:
-                s_rowt[i, : tb.ks, : tb.nbatch] = srt
-                s_nlane[i, : tb.ks, : tb.nbatch] = tb.s_nlane
-            # geometric factors of this part's cells, packed per batch
-            nc_i = len(s["cells_of"][i])
-            Gl = s["G"][i, :nc_i].reshape(nc_i, nd, 3, 3)
-            Gp = np.stack([Gl[:, :, a, b] for a, b in sym])
-            geo[i, :, : tb.nbatch] = pack_cell_values(tb, Gp, npdt)
-            for j, cell in enumerate(tb.spill_cells):
-                sp_dof[i, j] = s["ldof"][i, cell]
-                sp_G[i, j] = s["G"][i, cell]
-        return dict(
-            H=H, R=R, NB=NB, KG=KG, KS=KS, nr=NR, nrows=nrows, nsp=nsp,
-            cpr=tbs[0].cpr, rpc=tbs[0].rpc, ext=tbs[0].extents,
-            n_ov=n_ov,
-            start=start, g_lane=g_lane[:, :KG], g_rowt=g_rowt[:, :KG],
-            s_rowt=s_rowt,
-            s_nlane=s_nlane, ovt=ovt, geo=geo, sp_dof=sp_dof, sp_G=sp_G,
-            mA=mA, mB=mB,
-        )
-
     @property
     def _lv(self) -> int:
-        """Physical local vector length (logical NLP padded to whole
-        [*, 128] rows when the fused kernel runs)."""
-        fs = self._fused_setup
-        if fs is None:
-            return self._setup["NLP"]
-        return fs["nrows"] * 128
-
-    @cached_property
-    def _gen_call(self):
-        """The per-device fused-kernel program (shared by all devices)."""
-        fs = self._fused_setup
-        if fs is None:
-            return None
-        from ..ops.pallas_general import make_general_call
-
-        md = self.model
-        return make_general_call(
-            H=fs["H"], R=fs["R"], kg=fs["KG"], ks=fs["KS"], ngeo=6,
-            ext=fs["ext"], n_ov=fs["n_ov"], rpc=fs["rpc"],
-            nr=fs["nr"],
-            nrows=fs["nrows"], nbatch=fs["NB"], op="stiffness",
-            coeff=-float(md.c0) ** 2, dtype=md.dtype,
-        )
-
-    @cached_property
-    def _dmats(self):
-        fs = self._fused_setup
-        if fs is None:
-            return None
-        from ..ops.pallas_general import contraction_matrices
-
-        return contraction_matrices(
-            self.model.p, fs["cpr"], np.asarray(self.model.ops._D),
-            np.dtype(self.model.dtype), rpc=fs["rpc"],
-        )
+        """Local vector length: local dofs + the dummy slot."""
+        return self._setup["NLP"]
 
     # ------------------------------------------------------------------
     # device tables (sharded on axis 'd')
@@ -476,20 +308,8 @@ class ShardedGeneralWave:
             W2=shv(s["W2"]),
             own=shv(s["own"]),
         )
-        fs = self._fused_setup
-        if fs is None:
-            out["ldof"] = sh(s["ldof"], P("d", None, None))
-            out["G"] = sh(s["G"], P("d", *([None] * (s["G"].ndim - 1))))
-        else:
-            for name in ("start", "g_lane", "g_rowt", "s_rowt",
-                         "s_nlane", "ovt", "mA", "mB", "geo"):
-                a = fs[name]
-                out[name] = sh(a, P("d", *([None] * (a.ndim - 1))))
-            if fs["nsp"]:
-                out["sp_dof"] = sh(fs["sp_dof"], P("d", None, None))
-                out["sp_G"] = sh(
-                    fs["sp_G"], P("d", *([None] * (fs["sp_G"].ndim - 1)))
-                )
+        out["ldof"] = sh(s["ldof"], P("d", None, None))
+        out["G"] = sh(s["G"], P("d", *([None] * (s["G"].ndim - 1))))
         return out
 
     @property
@@ -529,43 +349,21 @@ class ShardedGeneralWave:
         return b.at[bidx].add(add, mode="promise_in_bounds")
 
     def _stiffness_local(self, u, tb):
-        """Local partial stiffness apply: fused windowed kernel when
-        available (per-device tables, one shared program), XLA indexed
-        otherwise."""
+        """Local partial stiffness apply: indexed gather -> element
+        contraction -> scatter-add over this part's cells."""
         md = self.model
         m1 = md.p + 1
         coeff = -jnp.asarray(md.c0, dtype=md.dtype) ** 2
-        fs = self._fused_setup
-        if fs is None:
-            xe = u.at[tb["ldof"]].get(
-                mode="promise_in_bounds"
-            ).reshape(-1, m1, m1, m1)
-            ye = ek.stiffness_element_full(
-                xe, np.asarray(md.ops._B), np.asarray(md.ops._D),
-                tb["G"], coeff,
-            )
-            return jnp.zeros(u.shape, dtype=u.dtype).at[
-                tb["ldof"].reshape(-1)
-            ].add(ye.reshape(-1), mode="promise_in_bounds")
-        nrows = fs["nrows"]
-        y0 = jnp.zeros((nrows, 128), dtype=md.dtype)
-        b = self._gen_call(
-            tb["start"], y0, u.reshape(nrows, 128), tb["g_lane"],
-            tb["g_rowt"], tb["s_rowt"], tb["s_nlane"], tb["ovt"],
-            tb["mA"], tb["mB"], tb["geo"], self._dmats,
-        ).reshape(-1)
-        if fs["nsp"]:
-            xe = u.at[tb["sp_dof"]].get(
-                mode="promise_in_bounds"
-            ).reshape(-1, m1, m1, m1)
-            ye = ek.stiffness_element_full(
-                xe, np.asarray(md.ops._B), np.asarray(md.ops._D),
-                tb["sp_G"], coeff,
-            )
-            b = b.at[tb["sp_dof"].reshape(-1)].add(
-                ye.reshape(-1), mode="promise_in_bounds"
-            )
-        return b
+        xe = u.at[tb["ldof"]].get(
+            mode="promise_in_bounds"
+        ).reshape(-1, m1, m1, m1)
+        ye = ek.stiffness_element_full(
+            xe, np.asarray(md.ops._B), np.asarray(md.ops._D),
+            tb["G"], coeff,
+        )
+        return jnp.zeros(u.shape, dtype=u.dtype).at[
+            tb["ldof"].reshape(-1)
+        ].add(ye.reshape(-1), mode="promise_in_bounds")
 
     def _f1_local(self, t, u, v, tb):
         md = self.model
@@ -634,8 +432,6 @@ class ShardedGeneralWave:
             mesh=self.mesh,
             in_specs=(self.state_spec, self.state_spec) + specs,
             out_specs=(self.state_spec, self.state_spec),
-            # pallas_call outputs carry no varying-mesh-axes metadata
-            check_vma=False,
         )
         u, v = jax.jit(sm)(u0, v0, *[tb[n] for n in names])
         return u, v, nsteps
@@ -681,7 +477,6 @@ class ShardedGeneralWave:
             local, mesh=self.mesh,
             in_specs=(self.state_spec,) + specs,
             out_specs=(self.state_spec, P(), P()),
-            check_vma=False,
         )
         x, k, rn = jax.jit(sm)(b, *[tb[n] for n in names])
         return x, int(k[0]), rn[0]

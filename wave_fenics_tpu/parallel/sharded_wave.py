@@ -6,9 +6,9 @@ SURVEY.md §3.1/§3.5) — re-designed SPMD:
 
 - each device owns a block of cells and the corresponding dof-grid block
   (interface planes duplicated, parallel.partition)
-- the ENTIRE RK4 time loop (lax.scan) runs inside one shard_map: per stage,
-  a local sum-factorized stiffness apply + one 3-axis ppermute halo-add.
-  No host round-trips, no per-step dispatch, collectives ride ICI.
+- the ENTIRE time loop (lax.scan; RK4 or leapfrog) runs inside one
+  shard_map: per force evaluation, a local sum-factorized stiffness apply +
+  one 3-axis ppermute halo-add. No host round-trips, no per-step dispatch.
 - global reductions (CG dots, norms) use ownership-weighted inner products
   (duplicated planes down-weighted by 1/multiplicity) — the IndexMap
   owned/ghost distinction reduced to a static weight mask.
@@ -28,6 +28,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..core.mesh import StructuredBoxMesh
 from ..models.linear_wave import LinearWave, lumped_boundary_weights
 from ..ops.operators import StructuredOperators
+from ..solvers.leapfrog import leapfrog_solve_n
 from ..solvers.rk4 import rk4_solve_n
 from .halo import halo_add
 from .partition import block_grid, make_device_mesh, unblock_grid
@@ -183,19 +184,39 @@ class ShardedLinearWave:
         out = b * sq(inv_m)
         return out.reshape(u.shape)
 
+    def _force_local(self, t, u, W1, inv_m):
+        """v-independent part of :meth:`_f1_local` — the leapfrog force
+        (solvers/leapfrog.py); the ABC damping splits off as the diagonal
+        c0 * W2 * inv_m."""
+        md = self.model
+        sq = lambda a: a.reshape(a.shape[3:])
+        b = self.local_ops.stiffness(sq(u), md.c0)
+        b = halo_add(b, self.parts)
+        b = b + (md.c0**2 * md.g_amplitude(t)) * sq(W1)
+        return (b * sq(inv_m)).reshape(u.shape)
+
     def solve(self, t0: float, tf: float, dt: float, u0=None, v0=None):
         """Distributed RK4: one shard_map around the whole time loop."""
         return self.solve_n(t0, dt, int(round((tf - t0) / dt)), u0, v0)
 
-    def solve_n(self, t0: float, dt: float, nsteps: int, u0=None, v0=None):
+    def solve_n(self, t0: float, dt: float, nsteps: int, u0=None, v0=None,
+                integrator: str = "rk4"):
+        """``integrator``: 'rk4' (reference parity) or 'leapfrog' (ONE
+        stiffness apply + halo-add per step; 2nd order, dt <= ~0.71x the
+        RK4 CFL step — solvers/leapfrog.py)."""
+        if integrator not in ("rk4", "leapfrog"):
+            raise ValueError(f"unknown integrator: {integrator!r}")
         if u0 is None:
             u0, v0 = self.zero_state()
 
         def local_solve(u, v, W1, W2, inv_m):
+            if integrator == "leapfrog":
+                damp = self.model.c0 * W2 * inv_m
+                force = lambda t, uu: self._force_local(t, uu, W1, inv_m)
+                return leapfrog_solve_n(force, damp, u, v, t0, dt, nsteps)
             f0 = lambda t, uu, vv: vv
             f1 = lambda t, uu, vv: self._f1_local(t, uu, vv, W1, W2, inv_m)
-            uo, vo = rk4_solve_n(f0, f1, u, v, t0, dt, nsteps)
-            return uo, vo
+            return rk4_solve_n(f0, f1, u, v, t0, dt, nsteps)
 
         sm = shard_map(
             local_solve,

@@ -6,12 +6,13 @@ velocity coupling: du/dt = v, dv/dt = F(t, u) - D v, where
 F(t, u) = M^-1(-c0^2 K u + g(t) W1) and D = diag(c0 W2 / m) acts only on
 absorbing-boundary dofs (common/LinearGLL.hpp:141-192 semantics). The
 reference integrates it with RK4 (LinearGLL.hpp:198-287) at 4 stiffness
-applies per step; on general (imported) meshes the fused operator is the
-entire step cost (BENCH_SUITE: ms_per_step ~= 4 x matvec, zero glue), so
-the classic wave-propagation integrator — leapfrog, optimal on the
-imaginary axis per force evaluation (stability interval 2 per apply vs
-RK4's 2.83/4) — is ~3.5x cheaper per step and ~2.8x cheaper per unit
-simulated time at the respective stability limits.
+applies per step; the stiffness applies are nearly the whole step cost
+(on one H100 at p=4, 4.28M dofs: 1.70 ms per RK4 step against 0.49 ms
+per leapfrog step), so the classic wave-propagation integrator —
+leapfrog, optimal on the imaginary axis per force evaluation (stability
+interval 2 per apply vs RK4's 2.83/4) — is ~3.4x cheaper per step and
+~2.4x cheaper per unit simulated time at the respective stability
+limits.
 
 Order/stability trade (documented, not hidden): leapfrog is 2nd-order
 (RK4 is 4th) and needs dt <= ~0.71x the RK4 CFL step. For production

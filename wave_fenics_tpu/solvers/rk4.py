@@ -92,7 +92,7 @@ def rk4_solve_dyn(
     nsteps,
 ):
     """:func:`rk4_solve_n` with a TRACED step count (``fori_loop``) — one
-    executable serves every window length, so warm/canary/production
+    executable serves every window length, so warm-up and production
     dispatches share a single (cached) compile."""
 
     def body(i, carry):

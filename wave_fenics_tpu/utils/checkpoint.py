@@ -22,18 +22,22 @@ import numpy as np
 
 __all__ = ["save_state", "load_state", "CheckpointManager"]
 
-try:
-    import orbax.checkpoint as ocp
 
-    _HAVE_ORBAX = True
-except Exception:  # pragma: no cover
-    _HAVE_ORBAX = False
+def _orbax():
+    """orbax.checkpoint, imported on first use (off the solve path), or
+    None when it is not installed."""
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError:  # pragma: no cover
+        return None
+    return ocp
 
 
 def save_state(path: str, u, v, t: float, meta: dict | None = None) -> None:
     """Write one snapshot. ``path`` is a directory (orbax) or .npz file."""
     meta = dict(meta or {}, t=float(t))
-    if _HAVE_ORBAX and not path.endswith(".npz"):
+    ocp = _orbax()
+    if ocp is not None and not path.endswith(".npz"):
         ckptr = ocp.StandardCheckpointer()
         ckptr.save(
             os.path.abspath(path),
@@ -49,7 +53,8 @@ def save_state(path: str, u, v, t: float, meta: dict | None = None) -> None:
 
 def load_state(path: str):
     """Returns (u, v, t, meta) as host numpy arrays."""
-    if _HAVE_ORBAX and not path.endswith(".npz"):
+    ocp = _orbax()
+    if ocp is not None and not path.endswith(".npz"):
         ckptr = ocp.StandardCheckpointer()
         restored = ckptr.restore(os.path.abspath(path))
         meta = json.loads(bytes(restored["meta_json"]).decode())

@@ -59,11 +59,6 @@ class RunConfig:
     #: write final u/v as XDMF (rectilinear grid for box runs, p-refined
     #: sub-hex grid for imported meshes); sharded runs skip it
     output_path: str | None = None
-    #: run the padded production solvers (fused Pallas kernels) even on
-    #: CPU (interpret mode) — CI coverage of the TPU app path on tiny
-    #: grids; production CPU runs keep the XLA path (interpret-mode
-    #: Pallas on a production grid takes hours)
-    force_padded: bool = False
 
 
 @dataclass
